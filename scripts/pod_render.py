@@ -2,7 +2,7 @@
 sharded over every device with sample-chunked progressive accumulation and
 periodic checkpointing.
 
-Run one process per host (TPU pods launch this automatically per worker):
+Run one process per host (``parallel.distributed`` joins them):
 
     python scripts/pod_render.py --width 4096 --height 4096 --spp 1024 \
         --chunk 8 --checkpoint pod_render.npz -o pod_render.png
@@ -31,9 +31,7 @@ def main():
     p.add_argument("--sample-ways", type=int, default=1)
     p.add_argument("--row-band", type=int, default=0,
                    help="rows per launch (0 = whole frame); bounds the live "
-                        "wavefront for 4k-class frames (TPU pads each (N,3) "
-                        "lane array's last dim 3->128, so whole-frame 4k "
-                        "wavefronts would need ~42x their logical HBM)")
+                        "wavefront for 4k-class frames")
     p.add_argument("--samples-per-lane", type=int, default=1,
                    help="persistent-lane quota (see RenderOptions)")
     p.add_argument("--seed", type=int, default=0)

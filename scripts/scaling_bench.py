@@ -2,9 +2,10 @@
 
 Measures rays/s of the sharded render at 1, 2, 4, ... N devices on the
 current platform and reports efficiency vs the single-device rate. On a
-pod this measures real ICI/DCN scaling; on a dev box run with --cpu-mesh
-to validate the harness on the 8-device virtual CPU mesh (efficiency
-numbers there reflect host-core contention, not ICI).
+multi-GPU host this measures real interconnect scaling; on a dev box run
+with --cpu-mesh to validate the harness on the 8-device virtual CPU mesh
+(efficiency numbers there reflect host-core contention, not a device
+interconnect).
 
     python scripts/scaling_bench.py [--cpu-mesh] [--width 512 --spp 32]
 """

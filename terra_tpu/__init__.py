@@ -1,10 +1,10 @@
-"""terra_tpu: a TPU-native differentiable wavefront path tracer.
+"""terra_tpu: a differentiable wavefront path tracer in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
+A from-scratch JAX/XLA re-design with the capabilities of the
 reference CPU renderer terra-render/Terra (see SURVEY.md): wavefront SoA
 path tracing under jit, counter-based threefry RNG for replay-exact
-gradients, masked-pass BSDF dispatch, flattened light tables, LBVH + Pallas
-traversal for large scenes, and pixel/sample sharding over device meshes.
+gradients, masked-pass BSDF dispatch, flattened light tables, SAH BVH +
+per-ray CUDA traversal for large scenes, and pixel/sample sharding over device meshes.
 
 Public API (the analogue of include/Terra.h:203-245):
 

@@ -1,21 +1,21 @@
-"""LBVH build: Morton-ordered cluster tree over triangles.
+"""BVH build: binary tree over triangles with fixed-size padded leaves.
 
-TPU re-design of the reference BVH (/root/reference/src/TerraBVH.c): the
-reference builds a per-triangle binary SAH tree (x-axis-only sweep,
-TerraBVH.c:79-126) with 2-wide nodes and an explicit traversal stack
-(TerraBVH.c:250-310). Pointer-chasing per ray is hostile to a SIMD machine,
-so here:
+The reference builds a per-triangle binary SAH tree (x-axis-only sweep,
+reference src/TerraBVH.c:79-126) walked with an explicit per-ray
+stack (TerraBVH.c:250-310). Here:
 
-  * triangles are sorted by the Morton code of their centroid (30-bit),
-  * consecutive runs of ``leaf_size`` triangles become fixed-size leaves
-    (uniform leaves -> fixed-shape vectorized leaf tests, no ragged work),
-  * a Karras-2012 binary radix tree is built over the leaf Morton codes
-    (vectorized, no recursion),
-  * node AABBs are refit bottom-up (also vectorized),
-  * the result is a flat SoA node table for the packet traversal in
-    ``traverse.py`` — index arrays, not pointers.
+  * the default builder is the native binned SAH (16 bins x 3 axes,
+    ``terra_tpu.native``); the Morton LBVH (Karras 2012 radix tree over
+    leaf Morton codes, vectorized NumPy) serves per-frame rebuilds and
+    hosts without a C++ compiler,
+  * leaves hold up to ``leaf_size`` triangles, padded by repeating the
+    last one (fixed-shape leaf tests for the XLA walk; the GPU kernel's
+    packing drops the padding),
+  * the result is a flat SoA node table (index arrays, not pointers) read
+    by both traversals: the per-ray CUDA kernel (``gpu_traverse``) and the
+    threaded skip-link walk (``traverse``).
 
-Build runs host-side at commit time (NumPy), exactly like the reference's
+Build runs host-side at commit time, like the reference's
 terra_scene_commit -> terra_bvh_create path (Terra.c:162-191). ``refit``
 re-computes AABBs only (for vertex edits / "mesh move", Scene.cpp:271-321).
 """
@@ -30,7 +30,9 @@ import numpy as np
 
 __all__ = ["LBVH", "build", "refit", "DEFAULT_LEAF_SIZE"]
 
-DEFAULT_LEAF_SIZE = 16
+# Leaf size of every build that names none (chosen by the leaf-size sweep
+# on the GPU traversal, PERF.md).
+DEFAULT_LEAF_SIZE = 4
 
 
 @partial(
@@ -45,11 +47,8 @@ DEFAULT_LEAF_SIZE = 16
         "tri_order",
         "dfs_next",
         "dfs_skip",
-        "wide_child",
-        "wide_src",
     ],
-    meta_fields=["leaf_size", "num_leaves", "num_wide", "depth",
-                 "wide_depth"],
+    meta_fields=["leaf_size", "num_leaves", "depth"],
 )
 @dataclass
 class LBVH:
@@ -65,16 +64,7 @@ class LBVH:
                repeating the last valid id; degenerate duplicates are
                harmless for closest-hit)
     tri_order : (T,) morton-sorted triangle permutation (for debugging)
-    wide_child : (W, 4) i32 — BVH4 overlay topology (greedy area-ordered
-                 collapse of the binary tree): wide node w's children, each
-                 an internal wide id < W, or W + leaf_id, or -1 empty.
-                 The binary tree stays canonical (XLA fallback, refit);
-                 the Pallas kernel traverses this 4-wide view to halve the
-                 pop count per ray.
-    wide_src : (W, 4) i32 — the BINARY node id bounding each wide child
-               (-1 empty). Child boxes are GATHERED from node_min/max at
-               pack time, so ``refit`` keeps the wide view valid for free.
-    leaf_size, num_leaves, num_wide : static metadata
+    leaf_size, num_leaves : static metadata
     """
 
     node_min: jax.Array
@@ -86,19 +76,12 @@ class LBVH:
     tri_order: jax.Array
     dfs_next: jax.Array  # (ni+C,) preorder successor (stackless threading)
     dfs_skip: jax.Array  # (ni+C,) preorder successor skipping the subtree
-    wide_child: jax.Array
-    wide_src: jax.Array
     leaf_size: int
     num_leaves: int
-    num_wide: int
-    # Max root->leaf node count of the binary tree (static, host-computed
-    # at build): the Pallas kernel's SMEM stack worst case is depth+2
-    # pushes for the ordered binary DFS and 3*depth+4 for the BVH4 overlay
-    # — _traverse_pallas asserts both against STACK_DEPTH at trace time,
-    # so an overflow is impossible at run time (the sanitizer analogue
-    # for the kernel's only unbounded structure).
+    # Max root->leaf node count (static, host-computed at build): the GPU
+    # kernel's ordered stack holds at most depth - 1 entries, which
+    # gpu_traverse.raycast checks against its stack size at trace time.
     depth: int = 0
-    wide_depth: int = 0  # max root->slot level count of the BVH4 overlay
 
     @property
     def num_internal(self) -> int:
@@ -206,74 +189,18 @@ def build(geometry, leaf_size: int | None = None, builder: str = "sah") -> LBVH:
     Falls back to the vectorized NumPy LBVH when the native library is
     unavailable.
 
-    ``leaf_size=None`` auto-scales: the default leaf grows (in steps of 8,
-    the dense-MT chunk width) until the flat node tables fit the Pallas
-    traversal kernel's SMEM budget, so Sponza-class (250k-tri) scenes stay
-    on the fast kernel instead of the XLA fallback."""
+    ``leaf_size=None`` takes DEFAULT_LEAF_SIZE."""
     pos = np.asarray(geometry.positions)
     vidx = np.asarray(geometry.tri_vidx)
     from .. import native
-    from . import pallas_traverse as _pt
-
-    # Auto leaf policy (round-4 measured, 1M-tri sweep in CLAUDE.md):
-    #   * small scenes: grow until the FULL-PRECISION f32 BVH4 table fits
-    #     (112 B/wide node) but only up to leaf 32 — f32-wide measured best
-    #     on incoherent rays at 242k tris (1.58 Mrays/s vs binary 1.52,
-    #     bf16 1.30) and small leaves keep dense tests cheap;
-    #   * bigger scenes: grow until the bf16 table fits (64 B/wide node)
-    #     up to leaf 64 — 1M tris measured 15.8 Mrays/s primary at
-    #     bf16-full leaf 64 vs 13.5 at the old f32-full leaf 96 policy
-    #     (leaf 72/80 regress: 15.3/14.1);
-    #   * anything larger stays at leaf 64 and traverses PAGED (top of the
-    #     wide tree SMEM-resident, the rest DMA'd per visit) — no size
-    #     cliff, no XLA-walk fallback.
-    F32_LEAF_CAP, BF16_LEAF_CAP = 32, 64
-
-    def _est_fits(leaf, bytes_per_wide):
-        leaves = max((len(vidx) + leaf - 1) // leaf, 1)
-        return int(leaves * 0.55) * bytes_per_wide <= _pt.SMEM_NODE_BUDGET
 
     use_sah = builder == "sah" and native.available()
-    auto = leaf_size is None
-    if auto:
+    if leaf_size is None:
         leaf_size = DEFAULT_LEAF_SIZE
-        # first estimate from ceil(T/L); SAH may produce up to 2x (half-full
-        # leaves) — the actual count is re-checked after the build below
-        while leaf_size < F32_LEAF_CAP and not _est_fits(leaf_size, 112):
-            leaf_size += 8
-        if not _est_fits(leaf_size, 112):
-            while leaf_size < BF16_LEAF_CAP and not _est_fits(leaf_size, 64):
-                leaf_size += 8
-
     nat = native.sah_build(pos, vidx, leaf_size) if use_sah else native.lbvh_build(pos, vidx, leaf_size)
 
-    def _actual(nat):
-        # the recheck uses the ACTUAL collapsed wide-node count, not the
-        # 0.55/leaf estimate (which overshoots ~5% and needlessly grows
-        # leaves right at the SMEM boundary — 242k courtyard: estimate
-        # says leaf 32, the real table fits at leaf 24)
-        wc, ws, nw, wd = _collapse4(nat["left"], nat["right"],
-                                    nat["box_min"], nat["box_max"])
-        return (wc, ws, nw, wd), nw
-
-    def _needs_growth(nw, leaf):
-        if leaf >= BF16_LEAF_CAP:
-            return False  # paged mode handles any size from here
-        per = 112 if leaf < F32_LEAF_CAP else 64
-        return nw * per > _pt.SMEM_NODE_BUDGET
-
-    collapsed, nw_actual = _actual(nat) if nat is not None else (None, 0)
-    while (auto and use_sah and nat is not None
-           and _needs_growth(nw_actual, leaf_size)):
-        # data-dependent SAH leaf count overflowed the kernel's SMEM node
-        # budget: grow leaves and rebuild (native build is ~100ms at 300k
-        # tris, so the retry is cheap)
-        leaf_size += 8
-        nat = native.sah_build(pos, vidx, leaf_size)
-        collapsed, nw_actual = _actual(nat)
     if nat is not None:
         c = nat["num_leaves"]
-        wc, ws, nw, wd = collapsed
         return LBVH(
             node_min=jnp.asarray(nat["box_min"]),
             node_max=jnp.asarray(nat["box_max"]),
@@ -284,13 +211,9 @@ def build(geometry, leaf_size: int | None = None, builder: str = "sah") -> LBVH:
             tri_order=jnp.asarray(nat["tri_order"]),
             dfs_next=jnp.asarray(nat["dfs_next"]),
             dfs_skip=jnp.asarray(nat["dfs_skip"]),
-            wide_child=jnp.asarray(wc),
-            wide_src=jnp.asarray(ws),
             leaf_size=leaf_size,
             num_leaves=c,
-            num_wide=nw,
             depth=_tree_depth(nat["left"], nat["right"]),
-            wide_depth=wd,
         )
     a, b, c3 = pos[vidx[:, 0]], pos[vidx[:, 1]], pos[vidx[:, 2]]
     t = len(vidx)
@@ -320,7 +243,6 @@ def build(geometry, leaf_size: int | None = None, builder: str = "sah") -> LBVH:
     # [internal; leaf] id space
     node_min, node_max = _refit_host(pos, vidx, leaf_tri, left, right)
     dfs_next, dfs_skip = _thread_tree(left, right, num_leaves)
-    wc, ws, nw, wd = _collapse4(left, right, node_min, node_max)
 
     return LBVH(
         node_min=jnp.asarray(node_min),
@@ -332,13 +254,9 @@ def build(geometry, leaf_size: int | None = None, builder: str = "sah") -> LBVH:
         tri_order=jnp.asarray(order),
         dfs_next=jnp.asarray(dfs_next),
         dfs_skip=jnp.asarray(dfs_skip),
-        wide_child=jnp.asarray(wc),
-        wide_src=jnp.asarray(ws),
         leaf_size=leaf_size,
         num_leaves=num_leaves,
-        num_wide=nw,
         depth=_tree_depth(left, right),
-        wide_depth=wd,
     )
 
 
@@ -357,58 +275,6 @@ def _tree_depth(left, right) -> int:
             if c < ni:
                 stack.append((c, dep + 1))
     return mx + 1  # + the leaf level
-
-
-def _collapse4(left, right, node_min, node_max):
-    """Greedy binary -> 4-wide collapse (host, at build time).
-
-    Each wide node starts from a binary internal node's two children and
-    repeatedly expands the largest-surface-area internal slot until four
-    slots are filled (the standard SAH-guided collapse; the reference has
-    no analogue — its 2-wide node is TerraBVH.h:12-22). Returns
-    (wide_child, wide_src, n_wide, wide_depth); see the LBVH docstring
-    for the encoding.
-    """
-    ni = len(left)
-    if ni == 0:
-        return (np.zeros((0, 4), np.int32), np.full((0, 4), -1, np.int32),
-                0, 1)
-    ext = np.maximum(node_max - node_min, 0.0)
-    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 0] * ext[:, 2]
-
-    children: list = [None]  # children[w] = slot list of BINARY ids
-    wide_of = {0: 0}
-    wdepth = {0: 1}
-    max_depth = 1
-    work = [0]
-    while work:
-        b = work.pop()
-        slots = [int(left[b]), int(right[b])]
-        while len(slots) < 4:
-            internals = [s for s in slots if s < ni]
-            if not internals:
-                break
-            s = max(internals, key=lambda x: area[x])
-            slots.remove(s)
-            slots.extend([int(left[s]), int(right[s])])
-        children[wide_of[b]] = slots
-        for s in slots:
-            if s < ni:
-                wide_of[s] = len(children)
-                wdepth[s] = wdepth[b] + 1
-                if wdepth[s] > max_depth:
-                    max_depth = wdepth[s]
-                children.append(None)
-                work.append(s)
-
-    n_wide = len(children)
-    wide_child = np.full((n_wide, 4), -1, np.int32)
-    wide_src = np.full((n_wide, 4), -1, np.int32)
-    for w, slots in enumerate(children):
-        for j, s in enumerate(slots):
-            wide_src[w, j] = s
-            wide_child[w, j] = wide_of[s] if s < ni else n_wide + (s - ni)
-    return wide_child, wide_src, n_wide, max_depth + 1  # + the leaf level
 
 
 def _thread_tree(left, right, num_leaves):

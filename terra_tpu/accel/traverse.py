@@ -1,8 +1,10 @@
-"""Stackless packet BVH traversal: skip-link walk, vectorized closest hit.
+"""Stackless packet BVH traversal in plain XLA: skip-link walk, vectorized
+closest hit. The BVH traversal on the CPU (``render.bvh_traversal``); the
+GPU runs the per-ray CUDA kernel of ``gpu_traverse`` instead.
 
-TPU re-design of terra_bvh_traverse (/root/reference/src/TerraBVH.c:250-310).
+Re-design of terra_bvh_traverse (reference src/TerraBVH.c:250-310).
 The reference walks a per-ray explicit stack — per-lane pointer chasing that
-a SIMD machine cannot vectorize. Here:
+array code cannot vectorize. Here:
 
   * the tree is *threaded* at build time (lbvh._thread_tree): every node
     carries its preorder successor (``dfs_next``) and its skip-subtree
@@ -57,66 +59,15 @@ def _morton3_bits(x, bits):
     ) & jnp.uint32((1 << (3 * bits)) - 1)
 
 
-def _sort_keys(o, d, scene_min, scene_max, mode: str = "octant", bvh=None):
-    """Coherence keys for packetizing. Sorting rays by this key before
-    packetizing collapses packet dilation for incoherent (bounce) rays.
-
-      octant  — direction octant (3 high bits) + 7-bit/axis origin Morton
-      dir2    — 2-bit/axis quantized direction (6 high bits) + origin Morton
-      dir3    — 3-bit/axis direction (9 high bits) + origin Morton
-      treelet — first-descent subtree path (8 high bits, needs ``bvh``):
-                rays grouped by the subtree their ordered traversal enters
-                FIRST, so a packet's early node set is hierarchy-aligned
-                instead of merely spatially close; + origin Morton
-    """
+def sort_keys(o, d, scene_min, scene_max):
+    """Coherence keys for reordering rays: direction octant (3 high bits)
+    + 7-bit/axis Morton code of the origin in the scene box. Sorting by it
+    groups incoherent (bounce) rays into tight packets."""
     inv_ext = 1.0 / jnp.maximum(scene_max - scene_min, 1e-12)
     on = (o - scene_min) * inv_ext  # [0,1] inside the scene
-    if mode == "treelet":
-        path = _treelet_path(bvh, o, d, depth=8)
-        morton = _morton3_bits(on * 127.0, 7)  # 21 bits
-        return (path << jnp.uint32(24)) | morton
-    dir_bits = {"octant": 1, "dir2": 2, "dir3": 3}[mode]
-    dn = (d + 1.0) * 0.5
-    dkey = _morton3_bits(dn * float(1 << dir_bits), dir_bits)
+    dkey = _morton3_bits((d + 1.0) * 0.5 * 2.0, 1)
     morton = _morton3_bits(on * 127.0, 7)  # 21 bits
     return (dkey << jnp.uint32(21)) | morton
-
-
-def _treelet_path(bvh, o, d, depth: int = 8):
-    """Per-ray first-descent path bits: from the root, repeatedly step to
-    the child with the smaller slab entry-t (the child an ordered
-    traversal would pop first), recording left/right per level. Rays
-    sharing the resulting ``depth``-bit prefix start their traversal in
-    the same treelet. Cost: ``depth`` packet-free (N,3) gathers + slab
-    tests — one cheap XLA prepass, no effect on traversal correctness."""
-    ni = bvh.num_internal
-    n = o.shape[0]
-    inv = jnp.where(jnp.abs(d) > 1e-12, 1.0 / d, jnp.float32(1e12))
-
-    def entry(nid):
-        bmin = bvh.node_min[nid]
-        bmax = bvh.node_max[nid]
-        t1 = (bmin - o) * inv
-        t2 = (bmax - o) * inv
-        tmin = jnp.max(jnp.minimum(t1, t2), axis=-1)
-        tmax = jnp.min(jnp.maximum(t1, t2), axis=-1)
-        hit = tmax >= jnp.maximum(tmin, 0.0)
-        return jnp.where(hit, jnp.maximum(tmin, 0.0), jnp.float32(np.inf))
-
-    node = jnp.zeros((n,), jnp.int32)
-    path = jnp.zeros((n,), jnp.uint32)
-    for _ in range(depth):
-        is_int = node < ni
-        safe = jnp.where(is_int, node, 0)
-        l = bvh.node_left[safe]
-        r = bvh.node_right[safe]
-        el = entry(l)
-        er = entry(r)
-        pick_r = er < el
-        ok = is_int & (jnp.minimum(el, er) < np.inf)
-        node = jnp.where(ok, jnp.where(pick_r, r, l), node)
-        path = (path << jnp.uint32(1)) | (ok & pick_r).astype(jnp.uint32)
-    return path
 
 
 def _packet_raycast(bvh, tri_a, tri_b, tri_c, o, d, max_outer: int = 4096,
@@ -146,7 +97,7 @@ def _packet_raycast(bvh, tri_a, tri_b, tri_c, o, d, max_outer: int = 4096,
         tmin = jnp.max(jnp.minimum(t1, t2), axis=-1)
         tmax = jnp.min(jnp.maximum(t1, t2), axis=-1)
         # >= not >: flat boxes (zero-extent axis) give tmin == tmax for
-        # every ray through them (see pallas_traverse._hitmask_at).
+        # every ray through them (see intersect.ray_aabb).
         hit = (tmax >= jnp.maximum(tmin, 0.0)) & (tmin < best_t)
         return jnp.any(hit, axis=1)
 
@@ -179,8 +130,8 @@ def _packet_raycast(bvh, tri_a, tri_b, tri_c, o, d, max_outer: int = 4096,
         take = t_best_l < best_t
         if any_hit:
             # occlusion-only query: any accepted hit collapses best-t to 0,
-            # pruning the lane from all later box tests (see the Pallas
-            # kernel's identical rule); t is then only "t < t_max".
+            # pruning the lane from all later box tests; t is then only
+            # "t < t_max".
             best_t = jnp.where(take, jnp.float32(0.0), best_t)
         else:
             best_t = jnp.where(take, t_best_l, best_t)
@@ -208,17 +159,16 @@ def _packet_raycast(bvh, tri_a, tri_b, tri_c, o, d, max_outer: int = 4096,
 
 
 def hinted_keys(leaf_of_tri, sort_hint, d):
-    """Parent-hit coherence keys (round-4 measured: bounce batches sorted
-    by (parent hit's BVH leaf, 3-bit/axis direction) traverse 8.2 vs 6.0
-    Mrays/s under the octant key on the 242k courtyard): rays leaving the
-    same leaf climb the same part of the tree, so packets become
-    hierarchy-aligned rather than merely spatially close. ``sort_hint`` is
-    the parent-hit triangle id per ray, or -1 for lanes with no parent
-    (dead/masked lanes group together at the key-space top)."""
+    """Parent-hit coherence keys, (parent hit's BVH leaf, 3-bit/axis
+    direction): rays leaving the same leaf climb the same part of the
+    tree, so packets become hierarchy-aligned rather than merely spatially
+    close. ``sort_hint`` is the parent-hit triangle id per ray, or -1 for
+    lanes with no parent (dead/masked lanes group together at the
+    key-space top)."""
     # Sort-quality-only key: clamp real leaf ids below the dead-lane
-    # sentinel (0x3FFFFF) so giant paged trees (leaf ids >= 2^23 would
-    # overflow the uint32 shift, and id 0x3FFFFF would collide with the
-    # sentinel) still produce valid, collision-free keys.
+    # sentinel (0x3FFFFF) so giant trees (leaf ids >= 2^23 would overflow
+    # the uint32 shift, and id 0x3FFFFF would collide with the sentinel)
+    # still produce valid, collision-free keys.
     leaf = jnp.where(
         sort_hint >= 0,
         jnp.minimum(leaf_of_tri[jnp.maximum(sort_hint, 0)].astype(jnp.uint32),
@@ -265,7 +215,7 @@ def raycast(scene, o, d, packet_size: int = PACKET_SIZE, sort_rays: bool = True,
         if sort_hint is not None and leaf_of_tri is not None:
             keys = hinted_keys(leaf_of_tri, sort_hint, d)
         else:
-            keys = _sort_keys(o, d, bvh.node_min[root], bvh.node_max[root])
+            keys = sort_keys(o, d, bvh.node_min[root], bvh.node_max[root])
         order = jnp.argsort(keys)
         o = o[order]
         d = d[order]

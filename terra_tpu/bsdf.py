@@ -4,7 +4,7 @@ Replaces the function-pointer BSDF vtable of the reference
 (/root/reference/include/Terra.h:46-54, presets in src/TerraPresets.c) with
 static integer dispatch: every preset is evaluated wavefront-wide and lanes
 select their material's result by mask. With a handful of cheap analytic
-lobes this is faster on TPU than any per-lane branching (no divergence, no
+lobes this is cheaper than per-lane branching (no divergence, no
 gathers) and keeps everything differentiable w.r.t. the attribute tensor.
 
 Presets:

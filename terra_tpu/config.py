@@ -107,8 +107,8 @@ OPTIONS: Dict[str, OptionSpec] = {
         OptionSpec("scene", "Scene OBJ path", str, ""),
         OptionSpec("seed", "RNG seed", int, 0),
         # kept for config-file compatibility; scheduling is XLA's job now
-        OptionSpec("workers", "(compat) worker threads — unused on TPU", int, 0),
-        OptionSpec("tile_size", "(compat) tile size — unused on TPU", int, 128),
+        OptionSpec("workers", "(compat) worker threads — unused", int, 0),
+        OptionSpec("tile_size", "(compat) tile size — unused", int, 128),
         OptionSpec("progressive", "(compat) progressive updates", int, 1),
     ]
 }

@@ -10,7 +10,7 @@ solid-angle density of any direction — enabling next-event estimation of
 the environment (``RenderOptions.env_nee``) with MIS against the BSDF
 strategy.
 
-Design notes (TPU):
+Design notes:
   * The proposal grid is FIXED-size (GRID_H x GRID_W), built inside the
     traced program by evaluating :func:`radiance` at the grid directions —
     static shapes regardless of the env texture's resolution (the atlas
@@ -113,9 +113,9 @@ def pdf(dist: distributions.Distribution2D, wi):
     col = jnp.clip((u * GRID_W).astype(jnp.int32), 0, GRID_W - 1)
     row = jnp.clip((v * GRID_H).astype(jnp.int32), 0, GRID_H - 1)
     total = jnp.maximum(dist.marginal.integral, np.float32(1e-20))
-    # two-stage one-hot fetch (row matmul + column multiply-reduce): the
-    # flat (N,) gather into the 8k-entry grid measured 6.4 ms per 262k
-    # lanes; the one-hot form rides the MXU like distributions.sample_2d
+    # two-stage one-hot fetch (row matmul + column multiply-reduce) in
+    # place of a flat (N,) gather into the 8k-entry grid, like
+    # distributions.sample_2d (its A/B against the gather is not measured)
     f_at = distributions._oh_at(distributions._oh_pick(dist.conditionals.f, row), col)
     density_uv = f_at * np.float32(GRID_W * GRID_H) / total
     sin_t = jnp.maximum(jnp.sin(theta), np.float32(1e-6))

@@ -2,7 +2,7 @@
 
 Replaces the scalar geometry kernels of the reference
 (/root/reference/src/TerraGeometry.c and the slab AABB test at
-Terra.c:851-878) with batched jnp implementations that map onto the VPU:
+Terra.c:851-878) with batched jnp implementations:
 
   * Moller-Trumbore ray/triangle (TerraGeometry.c:34-87 and the legacy path
     Terra.c:880-1020), fully vectorized over (rays x triangles).
@@ -10,11 +10,11 @@ Terra.c:851-878) with batched jnp implementations that map onto the VPU:
     render time via ``RenderOptions.intersector`` (the runtime analogue of
     the reference's compile-time switch, TerraGeometry.c:25-31); the f64
     fallback of the reference (TerraGeometry.c:204-208) is replaced by an
-    epsilon-free sign-consistency test in f32 (TPU has no cheap f64).
+    epsilon-free sign-consistency test in f32 (no f64 on the hot path).
   * A brute-force closest-hit sweep: for small scenes (Cornell-class) a
-    dense rays-x-triangles test is the *fastest* TPU strategy — perfectly
-    regular work with zero divergence — so it is a first-class accelerator
-    (Accelerator.BRUTE), not a fallback.
+    dense rays-x-triangles test is perfectly regular work with zero
+    divergence, so it is a first-class accelerator (Accelerator.BRUTE),
+    not a fallback, and the oracle every BVH traversal is gated on.
 
 Gradient policy: raycast produces discrete indices + t under stop_gradient;
 differentiable hit attributes are recomputed from the chosen triangle in
@@ -117,8 +117,8 @@ def mt_components(oc, dc, ac, bc, cc, eps: float = 1e-4):
     tuple of mutually broadcastable arrays. Returns (valid, t) broadcast.
 
     Written with scalar component arrays (no jnp.stack/cross) so XLA fuses
-    the whole chain into the consuming reduction — ~2.5x faster than the
-    stacked (..., 3) formulation on TPU.
+    the whole chain into the consuming reduction instead of materializing
+    stacked (..., 3) intermediates.
     """
     ox, oy, oz = oc
     dx, dy, dz = dc
@@ -163,9 +163,9 @@ def watertight_components(oc, dc, ac, bc, cc, eps: float = 1e-4):
         through shared edges/vertices (where one of them is exactly 0)
         hit at least one of the adjacent triangles — no cracks;
       * the reference's double-precision fallback for tiny barycentrics
-        (TerraGeometry.c:204-208) is dropped: TPU has no cheap f64, and the
-        zero-tolerant sign test above already covers the exact-edge case
-        the fallback exists for (documented deviation).
+        (TerraGeometry.c:204-208) is dropped: the zero-tolerant sign test
+        above already covers the exact-edge case the fallback exists for
+        (documented deviation).
 
     Arguments/result match :func:`mt_components`: component tuples of
     mutually broadcastable arrays; returns (valid, t).
@@ -251,8 +251,7 @@ def mt_grid_components(o, d, tri_a, tri_b, tri_c, eps: float = 1e-4, algo: str =
 def _closest_hit_block(o, d, tri_a, tri_b, tri_c, base_idx, algo: str = "mt"):
     """Dense (chunk, TB) test; returns per-ray (best_t, best_local_idx).
 
-    Uses min + argmin (NOT take_along_axis, which costs ~20ms/M lanes as a
-    per-row gather on TPU)."""
+    Uses min + argmin (not take_along_axis, a per-row gather)."""
     valid, t = mt_grid_components(o, d, tri_a, tri_b, tri_c, algo=algo)
     t = jnp.where(valid, t, T_FAR)
     best_t = jnp.min(t, axis=1)
@@ -267,7 +266,7 @@ def raycast_brute(o, d, tri_a, tri_b, tri_c, ray_chunk: int = 0, tri_block: int 
     tri_* : (T, 3) triangle corners
 
     Outer ``lax.map`` over ray chunks x inner ``lax.scan`` over triangle
-    blocks with a running (best_t, best_idx) carry — the TPU analogue of the
+    blocks with a running (best_t, best_idx) carry — the array analogue of the
     reference's per-ray loop over BVH leaves (TerraBVH.c:250-310) when the
     scene is small enough that a dense sweep beats pointer chasing.
 

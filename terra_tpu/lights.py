@@ -51,11 +51,8 @@ def pick_and_sample(scene: Scene, e_pick, e1, e2, area_weighted: bool = False,
 
     ``table``: the packed (Lcap, 30) light row table from
     surface.build_shade_tables — ONE fetch_rows per lane instead of ~8
-    chained gathers through geometry/light arrays. The chained-gather form
-    measured ~14 ms per 262k-lane bounce on the v5e and was the dominant
-    cost of the whole NEE integrator (config-2 bisect: DIRECT 44.4 ms/spp
-    vs SIMPLE 2.4 with identical scheduling and raycasts); it remains only
-    as the table-free fallback. Both paths produce bit-identical samples
+    chained gathers through geometry/light arrays; the chained-gather form
+    remains only as the table-free fallback. Both paths produce bit-identical samples
     (the table stores the same f32 values the gathers would load, and area
     is precomputed with the identical op sequence).
     """

@@ -1,8 +1,8 @@
 """Native host-side kernels (C++ via ctypes) with transparent fallback.
 
 The reference keeps its entire builder/runtime in C (/root/reference/src/);
-the TPU build keeps device compute in XLA/Pallas but the host-side scene
-build hot paths (LBVH construction, OBJ number crunching) are native C++:
+this package keeps device compute in XLA (and one CUDA kernel) but the
+host-side scene build hot paths (LBVH construction, OBJ number crunching) are native C++:
 
   * compiled lazily with g++ on first use (cached as _terra_native.so next
     to the source),

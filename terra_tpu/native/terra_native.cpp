@@ -258,17 +258,13 @@ static int32_t sah_range(SahCtx& B, int64_t lo, int64_t hi, int32_t cont,
     const int64_t min_side = std::max(B.min_side, n / 16);
     int64_t forced_mid = -1;
     const int64_t L = B.leaf_size;
-    // Window measured optimal at 4L: extending the forced splits to 8L
-    // lifted mean fill 0.85 -> 0.92 but box quality paid for it (242k
-    // primary 28.26 -> 27.51 Mrays/s, mega flat) — r5 A/B.
     if (!make_leaf && n <= 4 * L) {
-        // Chunk-packing splits (round 5): the Pallas dense leaf test runs
-        // in 8-triangle chunks, and padded slots repeat triangles — pure
-        // wasted VPU work (measured 23.6% of all chunks at 1M tris with
-        // SAH's balanced [L/2, L] leaves). Small ranges split at forced
-        // points that minimize the LEAF COUNT (each visit costs a full
-        // ceil(L/8) chunks regardless of fill) while keeping spatial
-        // locality via a widest-axis nth_element:
+        // Chunk-packing splits: padded leaf slots repeat triangles, so
+        // small ranges split at forced points that minimize the LEAF
+        // COUNT (fewer, fuller leaves) while keeping spatial locality via
+        // a widest-axis nth_element (the 8-aligned points date from a
+        // leaf test that ran in 8-triangle chunks; their effect on the
+        // GPU traversal is not measured):
         //   (L, 2L] : 8-aligned near-half point, exactly 2 leaves
         //   (2L,3L] : one FULL leaf + a packed (L, 2L] pair -> 3 leaves
         //   (3L,4L] : 8-aligned near-half -> two (L, 2L] sides -> 4

@@ -59,10 +59,10 @@ def build_1d(f) -> Distribution1D:
     return Distribution1D(f=f, cdf=c / safe[..., None], integral=integral)
 
 
-# Max table rows for the one-hot matmul fetch (the same MXU trick as
-# surface.fetch_rows): per-lane gathers from small tables cost ~50 ms/M
-# lanes each on TPU, a one-hot dot is ~free. Exact: one nonzero term per
-# dot row, so sums add zeros and copy the value bit-for-bit.
+# Max table rows for the one-hot matmul fetch (as surface.fetch_rows):
+# one dense dot instead of a per-lane gather from a small table. Exact: one
+# nonzero term per dot row, so sums add zeros and copy the value
+# bit-for-bit. Whether it beats a plain gather on the GPU is not measured.
 _ONEHOT_MAX = 512
 
 
@@ -74,8 +74,8 @@ def _oh_pick(table, idx):
         return table[idx]
     oh = jax.nn.one_hot(idx, n, dtype=jnp.float32)
     t = table if table.ndim == 2 else table[:, None]
-    # precision=HIGHEST: TPU's default bf16 matmul would quantize the
-    # fetched values (see surface.fetch_rows — the round-4 latent-bug fix)
+    # precision=HIGHEST: a reduced-precision matmul (bf16 passes, TF32)
+    # would quantize the fetched values (see surface.fetch_rows)
     out = jnp.dot(oh, t, preferred_element_type=jnp.float32,
                   precision=jax.lax.Precision.HIGHEST)
     return out if table.ndim == 2 else out[..., 0]
@@ -83,7 +83,7 @@ def _oh_pick(table, idx):
 
 def _oh_at(rows, idx):
     """rows[lane, idx[lane]] for (N, n) rows via one-hot multiply-reduce
-    (minor-dim take_along_axis is a per-lane gather on TPU)."""
+    (instead of a minor-dim take_along_axis per-lane gather)."""
     n = rows.shape[-1]
     if n > _ONEHOT_MAX:
         return jnp.take_along_axis(rows, idx[..., None], -1)[..., 0]
@@ -121,10 +121,8 @@ def sample_2d(dist: Distribution2D, e1, e2):
     """terra_distribution_2d_sample (Terra.c:835-846). Returns
     ((u, v), pdf) with u along x, v along y, both in [0,1).
 
-    Row/bucket fetches go through one-hot matmuls (see _oh_pick): the
-    per-lane row-gather + take_along_axis form measured 13.6 ms per 262k
-    lanes on the v5e — the same chained-gather disease as the round-4
-    light-table fix, and bit-identical to this form."""
+    Row/bucket fetches go through one-hot matmuls (see _oh_pick),
+    bit-identical to the per-lane row-gather + take_along_axis form."""
     v, pdf_y, row = sample_1d(dist.marginal, e1)
     cdf = _oh_pick(dist.conditionals.cdf, row)       # (N, nx)
     fr = _oh_pick(dist.conditionals.f, row)

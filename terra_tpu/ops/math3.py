@@ -1,9 +1,9 @@
 """Vectorized 3D vector math over stacked ``(..., 3)`` arrays.
 
-TPU-native re-design of the reference float3 math library
+Re-design of the reference float3 math library
 (``/root/reference/include/TerraMath.h:17-98`` and ``TerraMath.inl``): instead
 of a scalar struct-of-one-vector API, every helper here operates on batched
-arrays so the whole wavefront of rays is processed by the VPU in one shot.
+arrays so the whole wavefront of rays is processed in one shot.
 
 Coordinate conventions follow the reference: left-handed, Y-up
 (``TerraMath.h:10-12``).

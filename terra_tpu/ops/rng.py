@@ -2,8 +2,8 @@
 
 The reference mixes a seedable PCG32 pixel-jitter sampler (Terra.c:678-701)
 with **unseeded libc rand()** for every BSDF / light / roulette decision
-(Terra.c:115, 1068-1070, 1084), making renders non-reproducible. The TPU
-build replaces all of it with a stateless counter-based generator so that
+(Terra.c:115, 1068-1070, 1084), making renders non-reproducible. This
+package replaces all of it with a stateless counter-based generator so that
 
   * every random decision is a pure function of (seed, pixel, sample,
     bounce, stream) — the exact same numbers are replayed in forward and

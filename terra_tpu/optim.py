@@ -4,13 +4,13 @@ BASELINE.md config 4: recover BSDF albedo/roughness + emission (and
 optionally vertex positions, texture data, or the camera pose) by gradient
 descent on a pixel loss (see PARAM_FIELDS).
 The reference renderer has no gradients at all — this subsystem is the
-*point* of the TPU re-design: the whole wavefront renderer is jnp, the RNG
+*point* of this re-design: the whole wavefront renderer is jnp, the RNG
 is counter-based (replay-exact), and discrete choices are stop-gradiented,
 so reverse-mode through the full bounce scan just works.
 
 Distributed: the sharded train step runs the forward+backward wavefront
 under ``shard_map`` with pixel rows / samples sharded; scene-parameter
-gradients are ``psum``-all-reduced over the mesh (ICI), which XLA overlaps
+gradients are ``psum``-all-reduced over the mesh, which XLA may overlap
 with the backward sweep where profitable.
 
 KNOWN LIMITATION — visibility gradients. Vertex-position gradients flow
@@ -171,9 +171,8 @@ def make_train_step_sharded(cam: Camera, opts: RenderOptions, target, optimizer,
     chunk's backward — the structural form the north star's "grad
     all-reduce overlapped with the backward sweep" needs: chunk i's
     all-reduce has no data dependence on chunk i+1's backward, so an
-    async-collective scheduler can run them concurrently
-    (scripts/allreduce_overlap_probe.py records the compiler's actual
-    schedule; docs/PARITY.md discusses the evidence).
+    async-collective scheduler can run them concurrently (whether XLA:GPU
+    does is not measured yet).
 
     Gradient math: manual shared-cotangent VJPs. jax.vjp over each chunk's
     accumulator returns the forward value too, the full image's loss

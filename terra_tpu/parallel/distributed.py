@@ -1,20 +1,21 @@
 """Multi-host runtime: jax.distributed + pod-wide mesh construction.
 
 The reference has no distributed backend at all (SURVEY.md §2 #17: a
-single-process thread pool). The TPU build's multi-host story:
+single-process thread pool). This package's multi-host story:
 
-  * ``initialize()`` wraps ``jax.distributed.initialize`` (env-driven on
-    TPU pods; explicit coordinator for manual launches),
+  * ``initialize()`` wraps ``jax.distributed.initialize`` (pass the
+    coordinator address, process count and id; clusters whose scheduler
+    JAX detects supply them from the environment),
   * ``pod_mesh()`` builds the ('rows', 'samples') mesh over every device
-    in the slice — collectives ride ICI within hosts' slices and DCN
-    across hosts, orchestrated entirely by XLA,
+    of every process — collectives (NCCL on GPUs) are orchestrated
+    entirely by XLA,
   * rendering/training then goes through parallel.mesh.render_sharded /
     optim.make_train_step_sharded unchanged: the counter-based RNG keys
     off global pixel ids, so every host computes its shard of the exact
     same image.
 
-Single-host multi-chip and the CPU test mesh use the same code path; nothing
-here is pod-specific except initialize().
+Single-host multi-device and the CPU test mesh use the same code path;
+nothing here is multi-host-specific except initialize().
 """
 from __future__ import annotations
 
@@ -33,8 +34,8 @@ def initialize(coordinator_address: Optional[str] = None,
                process_id: Optional[int] = None) -> None:
     """Initialize the multi-host runtime (idempotent).
 
-    On TPU pods all arguments come from the environment; pass them
-    explicitly for manual multi-process CPU/GPU launches.
+    Pass the arguments explicitly for manual multi-process CPU/GPU
+    launches (nothing on a plain GPU host tells JAX of a cluster).
     """
     try:
         if coordinator_address is None:

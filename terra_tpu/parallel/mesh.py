@@ -1,11 +1,11 @@
 """Device-mesh sharding of the render wavefront: pixels x samples.
 
-This is the TPU-native replacement for the reference's tile/thread-pool
+This replaces the reference's tile/thread-pool
 parallelism (/root/reference/satellite/src/Renderer.cpp:322-402 + the
 Cloto work-stealing pool, satellite/include/Cloto.h): instead of pushing
 pixel tiles into a shared work queue, the pixel grid and the sample axis
 are sharded over a ``jax.sharding.Mesh`` with ``shard_map`` and the partial
-accumulators are combined with XLA collectives riding ICI:
+accumulators are combined with XLA collectives:
 
   * 'rows'    axis — data parallelism over pixel rows (tiles -> row bands);
   * 'samples' axis — sample-axis parallelism (spp split across devices,
@@ -47,8 +47,8 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None, devices=None) -> Mesh:
 
 def _shard_body(scene, cam, key, sample_offset, opts: RenderOptions, spp_shard: int, rows_per: int):
     """Per-device body: render my row band x my sample slice, then psum the
-    partial accumulator over the sample axis (the gradient/accum all-reduce
-    rides ICI)."""
+    partial accumulator over the sample axis (the gradient/accum
+    all-reduce runs over the device interconnect)."""
     ri = jax.lax.axis_index("rows")
     si = jax.lax.axis_index("samples")
     row0 = ri * rows_per
@@ -90,11 +90,9 @@ def render_band_sharded(scene: Scene, cam: Camera, opts: RenderOptions, key,
                         mesh: Mesh):
     """Rows [band0, band0+band_rows) of the frame for ``spp_chunk``
     samples, sharded like :func:`render_chunk_sharded`. Bounds the live
-    wavefront for very large frames: TPU tiles pad the lane dim of every
-    (N, 3) wavefront array 3 -> 128, so a whole-frame 4k x 4k launch would
-    allocate ~42x its logical bytes (measured: a 16.7M-lane launch asked
-    for a 34 GB single allocation). ``band0`` is traced — one compile
-    serves every band."""
+    wavefront of very large frames (render.MAX_WAVEFRONT_LANES: a launch
+    holds 520-760 bytes of temporaries per lane). ``band0`` is traced —
+    one compile serves every band."""
     n_rows = mesh.shape["rows"]
     n_samp = mesh.shape["samples"]
     assert band_rows % n_rows == 0 and spp_chunk % n_samp == 0

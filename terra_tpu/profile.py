@@ -1,10 +1,10 @@
 """Metrics registry + rays/s counters + jax.profiler hooks.
 
-TPU equivalent of the TerraProfile subsystem (/root/reference/src/
+Equivalent of the TerraProfile subsystem (reference src/
 TerraProfile.c, include/TerraProfile.h): where the reference brackets hot
 scalar code with per-thread clock buffers merged into running stats
-(TerraProfile.c:254-265), on TPU the device work is opaque to host timers,
-so the useful observables are:
+(TerraProfile.c:254-265), device work is opaque to host timers, so the
+useful observables are:
 
   * wall-clock per launch (block_until_ready-timed),
   * derived throughput counters — rays/s, Mrays/s/chip — computed from the
@@ -102,7 +102,7 @@ profiler = Profiler()
 
 @contextlib.contextmanager
 def device_trace(trace_dir: Optional[str]):
-    """XLA-level device trace via ``jax.profiler.trace`` — the TPU analogue
+    """XLA-level device trace via ``jax.profiler.trace`` — the analogue
     of the reference's TERRA_PROFILE build flag (TerraProfile.h:20): when
     ``trace_dir`` is set, every launch inside the context is recorded for
     TensorBoard/perfetto (per-kernel device timings, HBM traffic, fusion
@@ -117,10 +117,10 @@ def device_trace(trace_dir: Optional[str]):
 
 
 def stage_breakdown(scene, cam, opts, seed: int = 0, probe_lanes: int = 65536):
-    """Per-stage device timings on a probe wavefront — the TPU equivalent of
+    """Per-stage device timings on a probe wavefront — the equivalent of
     the reference's 4 bracketed hot targets (render / trace / ray / ray-tri,
     TerraPresets.h:54-60, TerraProfile.c). The megakernel's in-line clock
-    deltas don't exist on a TPU (one fused program), so each stage is timed
+    deltas don't exist in one fused device program, so each stage is timed
     as its own compiled program on identical inputs:
 
       raycast   — closest-hit traversal only        (~ reference 'ray')

@@ -1,22 +1,22 @@
 """Wavefront path-tracing driver: the jit-compiled render step.
 
-This is the TPU re-architecture of the reference's megakernel
+This is the wavefront re-architecture of the reference's megakernel
 (terra_render + terra_trace, /root/reference/src/Terra.c:512-635, 1039-1097):
 
   * the per-pixel/per-sample double loop becomes one flat SoA wavefront of
     ``H*W*spp_chunk`` lanes;
   * the data-dependent bounce loop becomes a fixed-length ``lax.scan`` over
     bounces with per-lane active masks (terminated lanes are masked, not
-    compacted — on a SIMD machine regular masked work beats divergence);
+    compacted — regular masked array work instead of divergent branches);
   * the tile/thread-pool scheduler (satellite Renderer.cpp + Cloto.h) is
     replaced by XLA: one jit program per sample chunk, sharded over devices
     by the ``parallel`` module;
   * libc rand() becomes counter-based threefry keyed by
     (pixel, sample, bounce, stream) — replay-exact in reverse mode.
 
-Sample chunking (``opts.samples_per_launch``) bounds the HBM footprint of
-the wavefront state, mirroring how the reference's ``loop`` command adds
-spp progressively (Renderer.cpp:134-151).
+Sample chunking (``opts.samples_per_launch``) bounds the device-memory
+footprint of the wavefront state, mirroring how the reference's ``loop``
+command adds spp progressively (Renderer.cpp:134-151).
 """
 from __future__ import annotations
 
@@ -43,6 +43,34 @@ EPS = np.float32(1e-4)
 _mask_dead_rays = intersect.mask_dead_rays
 
 
+def bvh_traversal(platform: str, scene: Scene):
+    """The BVH traversal for a JAX platform: the CUDA kernel on ``"gpu"``
+    (its tables packed once here), the XLA skip-link walk on ``"cpu"``.
+    Any other platform has none and raises (``Accelerator.BRUTE`` needs no
+    traversal).
+
+    Both take ``(scene, o, d, algo=, t_max=, any_hit=, sort_hint=)``.
+    ``sort_hint`` is the previous hit's triangle id per ray: the walk sorts
+    rays leaving the same BVH leaf together; the kernel takes rays in the
+    order given and ignores it."""
+    if platform == "gpu":
+        from .accel import gpu_traverse
+
+        packed = gpu_traverse.pack(scene.bvh, *scene.geometry.corners())
+
+        def kernel(scene, o, d, sort_hint=None, **kw):
+            return gpu_traverse.raycast(scene, o, d, packed=packed, **kw)
+
+        return kernel
+    if platform == "cpu":
+        from .accel import traverse
+
+        return partial(traverse.raycast,
+                       leaf_of_tri=traverse.leaf_of_tri_table(scene.bvh))
+    raise ValueError(f"no BVH traversal for platform {platform!r} "
+                     "(supported: gpu, cpu); use Accelerator.BRUTE")
+
+
 def make_raycast_fn(scene: Scene, opts: RenderOptions):
     """Closest-hit raycast closure (terra_scene_raycast, Terra.c:1623-1657):
     offsets the origin by dir*1e-3 and dispatches on the accelerator.
@@ -55,42 +83,12 @@ def make_raycast_fn(scene: Scene, opts: RenderOptions):
 
     algo = "watertight" if opts.intersector == Intersector.WATERTIGHT else "mt"
     if opts.accelerator == Accelerator.BVH and scene.bvh is not None:
-        from .accel import pallas_traverse, traverse as bvh_traverse
-
-        # Parent-hit coherence keys: the wavefront passes each raycast the
-        # previous hit's triangle ids (sort_hint); rays leaving the same
-        # BVH leaf sort together (measured 6.0 -> 8.2 Mrays/s on realistic
-        # bounce batches, scripts/bounce_sort_probe.py).
-        leaf_of = bvh_traverse.leaf_of_tri_table(scene.bvh)
-
-        # Pallas ordered-stack kernel on TPU (node tables SMEM-resident or
-        # paged from HBM, so the scene size is unbounded); XLA packet walk
-        # on CPU test meshes. Both intersectors run inside the kernel (the
-        # leaf test shares the component kernels with intersect.py).
-        use_pallas = (
-            jax.default_backend() not in ("cpu",)
-            and pallas_traverse.supported(scene.bvh)
-        )
-        if use_pallas:
-            packed = pallas_traverse.pack_tables_auto(
-                scene.bvh, *scene.geometry.corners()
-            )
-
-            def raycast(o, d, t_max=None, any_hit=False, sort_hint=None):
-                o = o + d * intersect.RAY_OFFSET_DIR
-                return pallas_traverse.raycast(scene, o, d, packed=packed,
-                                               algo=algo, t_max=t_max,
-                                               any_hit=any_hit,
-                                               sort_hint=sort_hint,
-                                               leaf_of_tri=leaf_of)
-
-            return raycast
+        traversal = bvh_traversal(jax.default_backend(), scene)
 
         def raycast(o, d, t_max=None, any_hit=False, sort_hint=None):
             o = o + d * intersect.RAY_OFFSET_DIR
-            return bvh_traverse.raycast(scene, o, d, algo=algo, t_max=t_max,
-                                        any_hit=any_hit, sort_hint=sort_hint,
-                                        leaf_of_tri=leaf_of)
+            return traversal(scene, o, d, algo=algo, t_max=t_max,
+                             any_hit=any_hit, sort_hint=sort_hint)
 
         return raycast
 
@@ -280,18 +278,13 @@ def trace(scene: Scene, opts: RenderOptions, key, o, d, pixel_idx, sample_idx):
             carry["emit_ok"] = ctx["delta"]
         return carry, None
 
-    # NOTE: splitting the final bounce out of the scan (to skip its
-    # discarded continuation work) measured ~8% faster at runtime but
-    # doubled the Mosaic compile time of the render graph on this
-    # toolchain — not worth it while compiles cost minutes.
     bounces = jnp.arange(opts.bounces + 1, dtype=jnp.int32)
     final, _ = jax.lax.scan(bounce_body, init, bounces)
     return final["Lo"]
 
 
 def trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key,
-                     pixel_idx, px, py, sample_base, quota: int,
-                     return_iters: bool = False):
+                     pixel_idx, px, py, sample_base, quota: int):
     """Persistent-lane wavefront: each lane traces ``quota`` samples of its
     pixel back-to-back, regenerating a fresh camera ray the moment a path
     terminates. The fixed-depth scan in :func:`trace` keeps every lane
@@ -435,8 +428,6 @@ def trace_persistent(scene: Scene, opts: RenderOptions, cam: Camera, key,
         return out
 
     final = jax.lax.while_loop(cond, body, init)
-    if return_iters:  # scheduler diagnostics (scripts/cfg2_probe.py)
-        return final["lo_total"], final["iters"]
     return final["lo_total"]
 
 
@@ -488,10 +479,11 @@ def render_chunk(scene: Scene, cam: Camera, opts: RenderOptions, key, sample_off
     return render_rows(scene, cam, opts, key, sample_offset, spp_chunk, 0, opts.height)
 
 
-# Largest wavefront a single launch may carry. TPU tiling pads the lane
-# dim of every (N, 3) wavefront array 3 -> 128 (42x the logical bytes), so
-# a whole-frame 4k x 4k chunk would ask for tens of GB per intermediate
-# (measured: one 34 GB allocation at 16.7M lanes). render() splits bigger
+# Largest wavefront a single launch may carry. XLA's memory analysis of a
+# render launch on the H100 gives 520-760 bytes of temporaries per lane
+# (courtyard DIRECT / DIRECT_MIS, Cornell GGX DIRECT_MIS; PERF.md), so the
+# cap holds one launch to about 1.6 GB and leaves the card's memory to
+# scenes and to several banded or sharded launches. render() splits bigger
 # frames into row bands; one traced-band0 compile serves every band.
 MAX_WAVEFRONT_LANES = 1 << 21
 

@@ -1,6 +1,6 @@
 """Scene representation: flat SoA device arrays registered as JAX pytrees.
 
-TPU-first redesign of the reference scene layer (``/root/reference/src/
+Redesign of the reference scene layer (``src/
 Terra.c:27-282``): where the reference keeps a growable array of
 ``TerraObject`` (AoS triangle structs + per-object material with function
 pointer BSDF vtables, Terra.h:124-129), we flatten the whole scene into
@@ -133,9 +133,9 @@ class SamplingMethod(enum.IntEnum):
 
 
 class Accelerator(enum.IntEnum):
-    """Reference has only BVH (Terra.h:139-141). We add BRUTE: on TPU a
-    dense all-triangles intersection is the fastest choice for small scenes
-    (perfectly regular VPU work, zero divergence)."""
+    """Reference has only BVH (Terra.h:139-141). We add BRUTE: a dense
+    all-triangles intersection, perfectly regular work with zero
+    divergence, for small scenes (and the oracle the BVH is gated on)."""
 
     BRUTE = 0
     BVH = 1
@@ -407,8 +407,8 @@ class RenderOptions:
     # NEE light pick strategy: uniform (reference behavior) or area-CDF
     # importance sampling over the flattened light table.
     light_pick: LightPick = LightPick.UNIFORM
-    # Debug-assert mode (the sanitizer analogue; the kernel's SMEM-stack
-    # bound is asserted statically regardless — pallas_traverse): when on,
+    # Debug-assert mode (the sanitizer analogue; the GPU kernel's stack
+    # bound is checked at trace time regardless — gpu_traverse): when on,
     # render() host-validates each chunk's accumulator and raises on
     # non-finite radiance, naming the offending pixel rows. Costs one
     # device->host sync per chunk; off by default.

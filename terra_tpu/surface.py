@@ -8,12 +8,12 @@ here *differentiably* from the vertex buffer, so gradients flow to vertex
 positions and material parameters without differentiating through the
 discrete hit choice (SURVEY.md §7 hard part (b)).
 
-TPU design note: per-lane chained gathers (positions[tri_vidx[tri,k]] x3,
-normals[tri], uvs[tri], attrs[mat[tri]]) cost ~100ms/M lanes on TPU. All
-per-triangle data is therefore packed into ONE (T, 25) "shade table" built
-per trace (T-sized, cheap, differentiable) and fetched per lane with a
-single row lookup: a one-hot matmul on the MXU for small scenes, a single
-wide gather for large ones. Material rows (always few) are fetched the same
+Design note: instead of per-lane chained gathers
+(positions[tri_vidx[tri,k]] x3, normals[tri], uvs[tri], attrs[mat[tri]]),
+all per-triangle data is packed into ONE (T, 25) "shade table" built per
+trace (T-sized, cheap, differentiable) and fetched per lane with a single
+row lookup: a one-hot matmul for small scenes, a single wide gather for
+large ones. Material rows (always few) are fetched the same
 way from a packed (M, 29) table.
 """
 from __future__ import annotations
@@ -51,9 +51,8 @@ class ShadeTables:
     light : (Lcap, 30) f32 — a(0:3) b(3:6) c(6:9) n0(9:12) n1(12:15)
           n2(15:18) uv0(18:20) uv1(20:22) uv2(22:24) area(24)
           emissive(25:28) tri_idx(28) emissive_tex(29). One fetch_rows per
-          NEE sample replaces ~8 per-lane chained gathers — the same
-          lesson as the tri/mat tables (chained gathers measured
-          ~100 ms/M lanes; this was the dominant config-2 cost).
+          NEE sample replaces ~8 per-lane chained gathers, as the
+          tri/mat tables do.
     """
 
     tri: jax.Array
@@ -120,18 +119,19 @@ def build_shade_tables(scene: Scene) -> ShadeTables:
 
 
 def fetch_rows(table, idx):
-    """Row lookup tuned for TPU: one-hot matmul (MXU) for small tables,
-    single wide gather otherwise. idx values must be in range."""
+    """Row lookup: one-hot matmul for small tables, single wide gather
+    otherwise (whether the matmul beats a gather on the GPU is not
+    measured). idx values must be in range."""
     rows = table.shape[0]
     if rows <= ONEHOT_MAX_ROWS:
         oh = jax.nn.one_hot(idx, rows, dtype=table.dtype)
-        # precision=HIGHEST: the TPU default matmul precision is bf16,
-        # which silently QUANTIZED every fetched table value (vertex
-        # coords off by ~2 units at Cornell scale) — a latent r1-r4 bug
-        # caught by the round-4 compiled-render smoke gate
-        # (tests/test_tpu_smoke.py; CPU goldens never saw it because XLA
-        # CPU matmuls are full f32). One-hot products are exact at any
-        # precision; the table operand's mantissa was the casualty.
+        # precision=HIGHEST: a reduced-precision default (bf16 passes,
+        # TF32) silently QUANTIZES every fetched table value (vertex
+        # coords off by ~2 units at Cornell scale) — caught once by the
+        # compiled-render smoke gate (tests/test_gpu_smoke.py; CPU goldens
+        # never see it because XLA CPU matmuls are full f32). One-hot
+        # products are exact at any precision; the table operand's
+        # mantissa is the casualty.
         return jnp.dot(oh, table, preferred_element_type=jnp.float32,
                        precision=jax.lax.Precision.HIGHEST)
     return table[idx]

@@ -7,7 +7,7 @@ anywhere**. Golden tests render the same scene/seed through both paths and
 require lane-wise agreement (tests/test_golden.py).
 
 It mirrors the behavior of the reference renderer's inner loop
-(/root/reference/src/Terra.c:1039-1097) under the TPU build's RNG
+(reference src/Terra.c:1039-1097) under this package's RNG
 discipline. Kept deliberately simple and scalar-ish; only meant for tiny
 test configs.
 """

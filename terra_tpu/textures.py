@@ -50,9 +50,8 @@ def _read(atlas: TextureAtlas, tex_id, x, y):
     """Gather texels: tex_id/x/y int32 lane arrays -> (N, 3) f32.
 
     The fetch flattens (tex, y, x) into ONE index into the row-major
-    atlas: a single 1D row gather instead of a 3-index gather — measured
-    1.24x on the adversarial random-uv case at 1024^2
-    (scripts/texture_probe.py; texel values identical)."""
+    atlas: a single 1D row gather instead of a 3-index gather (texel
+    values identical)."""
     h = atlas.size[tex_id, 0]
     w = atlas.size[tex_id, 1]
     mode = atlas.address[tex_id]

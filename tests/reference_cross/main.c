@@ -2,7 +2,7 @@
  *
  * Built by tests/test_reference_cross.py against the unmodified reference
  * sources (/root/reference/src/Terra.c etc.) and driven with a scene dumped
- * from the terra_tpu Python scene, so the TPU renderer's converged output
+ * from the terra_tpu Python scene, so the JAX renderer's converged output
  * can be statistically compared with the true compiled C reference
  * (terra_render, Terra.c:512-635). RNG streams differ (the reference uses
  * libc rand(), Terra.c:115), so only converged-mean agreement is testable.

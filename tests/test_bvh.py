@@ -1,4 +1,4 @@
-"""LBVH build validity + packet traversal vs brute force (SURVEY.md §4a)."""
+"""BVH build validity + XLA walk vs brute force (SURVEY.md §4a)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -117,42 +117,33 @@ def test_render_with_bvh_matches_brute():
     assert (rel > 1e-3).mean() < 5e-3
 
 
-@pytest.mark.parametrize("tris", [5, 33, 700, 3000])
-def test_wide_collapse_topology(tris):
-    """BVH4 overlay validity: every leaf referenced exactly once, every
-    wide node (but the root) referenced exactly once, and wide_src boxes
-    CONTAIN the referenced subtree's binary box (the gather source)."""
-    scene = tt.scenes.random_triangles(tris, seed=tris, accelerator=tt.Accelerator.BVH)
-    bvh = scene.bvh
-    nw = bvh.num_wide
-    wc = np.asarray(bvh.wide_child)
-    ws = np.asarray(bvh.wide_src)
-    ni = bvh.num_internal
-    if ni == 0:
-        assert nw == 0
-        return
-    assert nw >= 1
-    leaf_refs = np.sort(wc[wc >= nw] - nw)
-    np.testing.assert_array_equal(leaf_refs, np.arange(bvh.num_leaves))
-    internal_refs = np.sort(wc[(wc >= 0) & (wc < nw)])
-    np.testing.assert_array_equal(internal_refs, np.arange(1, nw))
-    # src ids are valid binary node ids of the matching kind
-    valid = wc >= 0
-    src = ws[valid]
-    child = wc[valid]
-    assert ((child >= nw) == (src >= ni)).all()
-    np.testing.assert_array_equal(src[child >= nw] - ni, child[child >= nw] - nw)
-    assert (ws[~valid] == -1).all()
+def test_xla_any_hit_occlusion_matches_ranged():
+    """any_hit=True occlusion booleans equal the ranged closest-hit booleans
+    (the early-out may only change WHICH hit terminates a lane, never
+    whether one exists within t_max)."""
+    scene = tt.scenes.random_triangles(900, seed=5, accelerator=tt.Accelerator.BVH)
+    rng = np.random.default_rng(7)
+    n = 2048
+    o = jnp.asarray(rng.uniform(-2, 2, (n, 3)).astype(np.float32))
+    d_ = rng.normal(size=(n, 3)).astype(np.float32)
+    d = jnp.asarray(d_ / np.linalg.norm(d_, axis=-1, keepdims=True))
+    tm = jnp.asarray(rng.uniform(0.3, 3.0, (n,)).astype(np.float32))
+    occ_a = traverse.raycast(scene, o, d, t_max=tm, any_hit=True)
+    occ_c = traverse.raycast(scene, o, d, t_max=tm)
+    np.testing.assert_array_equal(np.asarray(occ_a.hit), np.asarray(occ_c.hit))
 
 
-def test_flat_box_walls_are_hit():
+@pytest.mark.parametrize("impl", ["xla_walk", "gpu_twin"])
+def test_flat_box_walls_are_hit(impl, twin_impl):
     """Axis-aligned coplanar geometry collapses its BVH boxes to zero
     extent on one axis; every ray through such a box has tmin == tmax, so
     the slab test must accept equality (regression: whole courtyard walls
     were invisible to the BVH paths — 41/2048 random rays on the 242k
-    scene)."""
+    scene). Checked for the XLA walk and the GPU kernel's twin."""
+    import functools
+
     import terra_tpu.scenes as scenes
-    from terra_tpu.accel import pallas_traverse, traverse as xw
+    from terra_tpu.accel import gpu_traverse
 
     # a grid of coplanar triangles in the x=0 plane (one flat wall)
     tris = []
@@ -188,8 +179,10 @@ def test_flat_box_walls_are_hit():
     o = jnp.asarray(o); d = jnp.asarray(d)
     ta, tb_, tc = scene.geometry.corners()
     hit_b = intersect.raycast_brute(o, d, ta, tb_, tc)
-    hit_p = pallas_traverse.raycast(scene, o, d, interpret=True)
-    hit_x = xw.raycast(scene, o, d)
-    np.testing.assert_array_equal(np.asarray(hit_p.hit), np.asarray(hit_b.hit))
-    np.testing.assert_array_equal(np.asarray(hit_x.hit), np.asarray(hit_b.hit))
+    if impl == "gpu_twin":
+        fn = functools.partial(gpu_traverse.raycast, impl=twin_impl)
+    else:
+        fn = traverse.raycast
+    hit = fn(scene, o, d)
+    np.testing.assert_array_equal(np.asarray(hit.hit), np.asarray(hit_b.hit))
     assert np.asarray(hit_b.hit).mean() > 0.9  # nearly all rays cross the wall

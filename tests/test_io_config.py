@@ -291,3 +291,76 @@ def test_ldr_overflow_warning(tmp_path, caplog):
     with caplog.at_level(logging.WARNING, logger="terra_tpu"):
         save_image(str(tmp_path / "x.png"), np.full((4, 4, 3), 2.0, np.float32))
     assert any("clamping" in r.message for r in caplog.records)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 3, 4])
+def test_png_roundtrip_exact(tmp_path, channels):
+    """The numpy/zlib PNG codec round-trips 8-bit gray, gray+alpha, RGB
+    and RGBA exactly."""
+    from terra_tpu.io.image import load_png, save_png
+
+    u8 = np.random.default_rng(channels).integers(0, 256, (9, 7, channels), np.uint8)
+    p = str(tmp_path / "t.png")
+    save_png(p, u8)
+    np.testing.assert_array_equal(load_png(p), u8)
+
+
+def _filtered_png(path, u8, kind):
+    """Encode with one PNG filter type on every row (the encoder the codec
+    does not use itself), to check the decoder's unfiltering."""
+    import struct
+    import zlib
+
+    h, w, c = u8.shape
+    rows = u8.reshape(h, w * c).astype(np.int32)
+    out = []
+    for y in range(h):
+        cur = rows[y]
+        prev = rows[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(c, np.int32), cur[:-c]])
+        upleft = np.concatenate([np.zeros(c, np.int32), prev[:-c]])
+        if kind == 1:
+            pred = left
+        elif kind == 2:
+            pred = prev
+        elif kind == 3:
+            pred = (left + prev) >> 1
+        else:
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+        out.append(bytes([kind]) + ((cur - pred) & 0xFF).astype(np.uint8).tobytes())
+
+    def chunk(k, data):
+        return struct.pack(">I", len(data)) + k + data + struct.pack(
+            ">I", zlib.crc32(k + data) & 0xFFFFFFFF)
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n")
+        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)))
+        f.write(chunk(b"IDAT", zlib.compress(b"".join(out))))
+        f.write(chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("kind", [1, 2, 3, 4])
+def test_png_decoder_undoes_filters(tmp_path, kind):
+    from terra_tpu.io.image import load_png
+
+    u8 = np.random.default_rng(kind).integers(0, 256, (6, 5, 3), np.uint8)
+    p = str(tmp_path / f"f{kind}.png")
+    _filtered_png(p, u8, kind)
+    np.testing.assert_array_equal(load_png(p), u8)
+
+
+def test_png_needs_no_pillow(tmp_path, monkeypatch):
+    """PNG save/load works without Pillow; the formats that need it raise
+    an error naming it."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "PIL", None)
+    img = np.random.default_rng(0).uniform(0, 1, (4, 4, 3)).astype(np.float32)
+    p = str(tmp_path / "t.png")
+    save_image(p, img)
+    assert np.abs(load_image(p, srgb=False) - img).max() < 2 / 255
+    with pytest.raises(ImportError, match="Pillow"):
+        save_image(str(tmp_path / "t.jpg"), img)
